@@ -28,7 +28,7 @@ def parse_args(argv):
         "matrix_file": "", "separator_file": "", "clusters_file": "",
         "b_file": "", "solution_file": "", "factor_file": "",
         "permuted_matrix_file": "", "debug_path": "", "debug": False,
-        "iterations": 1, "dtype": "float64", "devices": 0, "slices": 0,
+        "iterations": 1, "dtype": "float64", "devices": 0,
         "bench": False,
         "profile": False, "debug_dumps": False,
         "save_factor": "", "load_factor": "", "inv_diag_file": "",
@@ -59,8 +59,6 @@ def parse_args(argv):
             opts["dtype"] = argv[i + 1]; i += 2
         elif a == "--devices":
             opts["devices"] = int(argv[i + 1]); i += 2
-        elif a == "--slices":
-            opts["slices"] = int(argv[i + 1]); i += 2
         elif a == "--profile":
             opts["profile"] = True; i += 1
         elif a == "--debug-dumps":
@@ -97,10 +95,7 @@ def main(argv=None) -> int:
 
     if opts["dtype"] == "float64":
         cholesky_tpu.enable_x64()
-    import jax
-
-    import cholesky_tpu; cholesky_tpu.setup_compilation_cache()
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    cholesky_tpu.setup_compilation_cache()
     from cholesky_tpu import SparseCholesky
     from cholesky_tpu.io import mmio
 
@@ -108,7 +103,7 @@ def main(argv=None) -> int:
         print("usage: python -m cholesky_tpu.cli -i matrix.mtx [-s ord.txt] "
               "[-c clust.txt] [-b B.mtx] [-o solution.txt] [-m factor.mtx] "
               "[-p permuted.mtx] [-d debug_dir] [--iterations N] "
-              "[--dtype float64|float32] [--devices N] [--slices S] "
+              "[--dtype float64|float32] [--devices N] "
               "[--profile] "
               "[--save-factor ckpt.npz] [--load-factor ckpt.npz] "
               "[--inv-diag out.txt] [--signs signs.txt]\n"
@@ -129,20 +124,7 @@ def main(argv=None) -> int:
         print(f"signature: {int((signs > 0).sum())} positive, "
               f"{int((signs < 0).sum())} negative (quasi-definite LDL^T)")
     mesh = None
-    if opts["slices"] > 1:
-        # multi-slice (DCN-aware) placement: --slices S [--devices S*C]
-        from cholesky_tpu.parallel.mesh import make_multislice_mesh
-
-        if opts["devices"] > 1 and opts["devices"] % opts["slices"]:
-            # mirror make_multislice_mesh's inferred-case ValueError instead
-            # of silently truncating to slices*(devices//slices) devices
-            print(f"Error: --devices {opts['devices']} is not divisible by "
-                  f"--slices {opts['slices']}")
-            return 2
-        per = (opts["devices"] // opts["slices"]) if opts["devices"] > 1 \
-            else None
-        mesh = make_multislice_mesh(opts["slices"], per)
-    elif opts["devices"] > 1:
+    if opts["devices"] > 1:
         from cholesky_tpu.parallel.mesh import make_mesh
 
         mesh = make_mesh(opts["devices"])

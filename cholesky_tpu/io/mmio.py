@@ -1,6 +1,6 @@
 """MatrixMarket I/O.
 
-TPU-native re-implementation of the reference's vendored NIST mmio library
+Re-implementation of the reference's vendored NIST mmio library
 (reference: mmio.c:96 `mm_read_banner`, mmio.c:189 `mm_read_mtx_crd_size`,
 mmio.c:386 `mm_write_banner`, typecode macros mmio.h:33-75).
 

@@ -1,7 +1,7 @@
 """Nested-dissection ordering (`*_ord_*.txt`) and cluster-hierarchy
 (`*_clust_*.txt`) file parsers.
 
-TPU-native equivalents of the reference's Legion-region readers
+Equivalents of the reference's Legion-region readers
 (reference: read_separators mnd.c:22-69, read_clusters mnd.c:71-150), producing
 plain NumPy/host structures instead of writing into Legion physical regions.
 

@@ -1,7 +1,7 @@
 // Native host runtime: MatrixMarket parsing/serialization, hashed COO ingest,
 // and panel assembly.
 //
-// TPU-native re-implementation of the reference's native layer:
+// Re-implementation of the reference's native layer:
 //   * mmio.c (NIST MatrixMarket reader/writer, mmio.c:96,189,386)
 //   * mnd.c  (separator/cluster/matrix/vector readers + open-addressing COO
 //     hash ingest with uthash hash functions, mnd.c:152-199,231-271)

@@ -1,9 +1,9 @@
 """Host-side assembly: scatter the COO matrix into per-level panel buffers.
 
-TPU-native replacement for the reference's hashed-COO ingest + per-block fill
+Replacement for the reference's hashed-COO ingest + per-block fill
 (read_matrix mnd.c:152-199 builds an open-addressing hash table; fill_block
-mmat.rg:530-633 probes it per block entry). On TPU the numeric phase wants
-statically-shaped batched HBM buffers, so assembly instead computes, for every
+mmat.rg:530-633 probes it per block entry). The numeric phase wants
+statically-shaped batched device buffers, so assembly instead computes, for every
 nonzero, its (level, slot, row, col) destination in the panel arrays with
 vectorized integer arithmetic and scatters once. A C++ fast path lives in
 cholesky_tpu.native for large matrices.

@@ -8,7 +8,7 @@ CHOLMOD/direct factorization). This module supplies that companion:
 - **Smallest eigenpairs** come from Lanczos on the *inverse* operator
   ``v ↦ A⁻¹v``, where every application is one forward/backward triangular
   solve pair through the already-computed factor (mixed-precision refined, so
-  an fp32 MXU factor still yields f64-accurate Ritz pairs). Convergence is
+  an fp32 factor still yields f64-accurate Ritz pairs). Convergence is
   governed by the gaps of 1/λ, which are wide exactly where A's smallest
   eigenvalues cluster — the regime where plain Lanczos on A stalls.
 - **Largest eigenpairs** use plain Lanczos on the sparse matvec (no factor

@@ -8,7 +8,7 @@ schedule
 (mmat.rg:1211-1358): instead of one Legion leaf task per block per BLAS call
 (fused_dpotrf/fused_dtrsm/fused_dsyrk/fused_dgemm, blas.rg:293-503), each tree
 level is processed by THREE batched dense kernels over the stacked panel
-array — which is exactly the work the MXU wants:
+array — which is exactly the work batched matrix units want:
 
   1. POTRF   : batched Cholesky of the [B, S, S] diagonal blocks
                (== the reference's phase-1 index launch, mmat.rg:1240-1245)
@@ -25,7 +25,7 @@ All shapes are static; the per-level Python loop unrolls into a single XLA
 program. Sibling contributions heading to the same ancestor are combined with
 `segment_sum` over the slot axis (slot >> level-delta is the ancestor slot —
 the heap arithmetic of mmat.rg:1265-1270), which XLA lowers to efficient
-reductions and, under sharding, to ICI collectives.
+reductions and, under sharding, to collectives.
 """
 
 from __future__ import annotations

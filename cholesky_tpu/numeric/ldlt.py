@@ -81,8 +81,7 @@ def _signed_cholesky_scan(a: jax.Array, s: jax.Array) -> jax.Array:
 def blocked_signed_cholesky(a: jax.Array, s: jax.Array) -> jax.Array:
     """Batched blocked right-looking signed Cholesky of [B, W, W] (lower
     triangle read): panels factor by the column scan, panel solves and
-    trailing updates run on the MXU — the signed analogue of
-    frontal._blocked_cholesky."""
+    trailing updates run as batched matmuls."""
     B, W, _ = a.shape
     if W <= _CHOL_BS:
         return _signed_cholesky_scan(a, s)

@@ -17,7 +17,7 @@ boundary is contained in its parent's front (asserted at plan build,
 frontal.py), Phi_SS is a gather from the parent's front-inverse block
 P_parent = Phi over (parent pivot ∪ parent boundary). The recursion runs
 root → leaves, one batched step per tree level: every operation is a
-[B, ·, ·] matmul on the MXU, mirroring the factorization's level structure
+[B, ·, ·] batched matmul, mirroring the factorization's level structure
 in reverse.
 
 Cost: ~2 extra factorizations' worth of FLOPs; memory: P is [B, F, F] per
@@ -27,7 +27,7 @@ for the scales the monolithic factor path handles.
 Reference parity: none — the reference (syamajala/cholesky) has no inverse
 capability. This is a standard production feature of sparse direct solvers
 (Takahashi equations; PSelInv) that the batched frontal layout makes
-TPU-native.
+a sequence of batched matmuls.
 """
 
 import functools
@@ -62,9 +62,9 @@ def _selinv_core(W: int, dtype, fac, idx, P_prev):
 
     The parent-inverse restriction Pp = P_prev[parent][idx, idx] is computed
     as two one-hot batched matmuls (G @ P @ G^T), not an advanced-index
-    gather: XLA lowers the 2-D gather element-wise (~6 s for the 269M
-    gathered elements of a 50^3/L8 run) while the one-hot contraction is
-    ~3.8 TFLOP of MXU work (tens of ms) — the same trade the extend-add's
+    gather: XLA lowered the 2-D gather element-wise (269M gathered
+    elements at 50^3/L8) on the first target, while the one-hot
+    contraction is ~3.8 TFLOP of matmul work — the same trade the extend-add's
     gathermm strategy measured (frontal.py). The one-hot products are exact
     (1.0 times a float is exact in every matmul precision), and sentinel
     positions (padded boundary rows, idx == F_prev) produce all-zero one-hot

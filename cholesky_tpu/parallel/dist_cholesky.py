@@ -11,18 +11,18 @@ right-looking blocked Cholesky** inside `shard_map`:
     block for the whole factorization (a contiguous column layout idles the
     chips that own leading columns: chip 0 does ~1/ndev of the FLOPs of the
     last chip, measured 1.9x wall at F=8192 on the 8-device mesh);
-  * per step, the active panel is broadcast with one `psum` over ICI (the
-    owner contributes, others zero): Fp·block·4 bytes per step, and with
-    nb = Fp/block steps the total collective volume is Fp²·4 bytes per chip
-    for the whole factorization — the same order as reading the matrix once
-    (a ring all-reduce moves 2·(ndev−1)/ndev ≈ 2x that on the wire; at
-    Fp = 16384 that is 2 GiB over ICI at ~100 GB/s ≈ 20 ms, small next to
-    the 16384³/3 = 1.5 TFLOP of compute);
+  * per step, the active panel is broadcast with one `psum` over the device
+    interconnect (the owner contributes, others zero): Fp·block·4 bytes per
+    step, and with nb = Fp/block steps the total collective volume is
+    Fp²·4 bytes per device for the whole factorization — the same order as
+    reading the matrix once (a ring all-reduce moves 2·(ndev−1)/ndev ≈ 2x
+    that on the wire; at Fp = 16384 that is 2 GiB, small next to the
+    16384³/3 = 1.5 TFLOP of compute);
   * every chip redundantly factors the [block, block] diagonal block
     (block³/3 FLOPs — cheaper than a second collective) and triangular-
     solves the panel below it;
   * the trailing update of a chip's own columns is one [Fp, block] x
-    [block, local] MXU matmul per step — each chip updates only the columns
+    [block, local] matmul per step — each chip updates only the columns
     it owns, so compute per step is Fp·block·Fp/ndev flops, balanced by the
     cyclic layout.
 
@@ -48,16 +48,7 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from cholesky_tpu.parallel.mesh import DCN_AXIS, TREE_AXIS
 from cholesky_tpu.utils import round_up as _round_up
-
-
-def _is_multislice(mesh: Mesh) -> bool:
-    """A 2-axis (DCN_AXIS, TREE_AXIS) mesh from make_multislice_mesh with a
-    real slice axis AND ≥2 chips per slice (1-chip slices have no ICI to
-    prefer, so they route like a flat mesh)."""
-    return (mesh.axis_names == (DCN_AXIS, TREE_AXIS)
-            and mesh.devices.shape[0] >= 2 and mesh.devices.shape[1] >= 2)
 
 
 def _cyclic_perm(Fp: int, ndev: int, block: int) -> np.ndarray:
@@ -80,27 +71,21 @@ def _grid_for(ndev: int) -> tuple:
     return max(pr, ndev // pr), min(pr, ndev // pr)
 
 
-def _pick_scheme(F: int, ndev: int, block: int, mesh: Mesh = None) -> str:
+def _pick_scheme(F: int, ndev: int, block: int) -> str:
     """Route the collective root front: the 1-D column-cyclic scheme moves
     ~2·F²·4 bytes per chip over the whole factorization (one [F, block]
     panel all-reduce per step); the 2-D (pr, pc) grid moves
     ~2·F²·4·(1/pr + 1/pc) plus a diagonal-tile broadcast — a win once
     1/pr + 1/pc < 1, i.e. ndev ≥ 6 non-prime grids, and the panel is tall
     enough that the extra latency of two group collectives per step
-    amortizes (F/ndev ≥ 4 blocks per chip per direction).
-
-    A multi-slice mesh forces 2-D regardless: the 1-D panel all-reduce
-    crosses the DCN every step (F·block·4 bytes at DCN bandwidth), while
-    the 2-D grid mapped (rg=tree, cg=slice) confines the tall row-broadcast
-    to ICI and sends only the (F/chips_per_slice)·block column piece over
-    DCN. CHOLESKY_TPU_ROOT_SCHEME=1d/2d overrides."""
+    amortizes (F/ndev ≥ 4 blocks per device per direction). At 4 devices
+    the 2x2 grid ties with 1-D (1/2 + 1/2 = 1), so 1-D is kept there.
+    CHOLESKY_TPU_ROOT_SCHEME=1d/2d overrides."""
     import os
 
     forced = os.environ.get("CHOLESKY_TPU_ROOT_SCHEME")
     if forced in ("1d", "2d"):
         return forced
-    if mesh is not None and _is_multislice(mesh):
-        return "2d"
     pr, pc = _grid_for(ndev)
     if pc < 2:                      # prime/tiny meshes: no useful grid
         return "1d"
@@ -113,7 +98,7 @@ def _pick_scheme(F: int, ndev: int, block: int, mesh: Mesh = None) -> str:
 
 def distributed_cholesky(a: jax.Array, mesh: Mesh, block: int = 256) -> jax.Array:
     """Cholesky of an SPD matrix [F, F] (lower triangle referenced), computed
-    cooperatively over `mesh`'s TREE_AXIS with 1-D block-cyclic column
+    cooperatively over `mesh`'s devices with 1-D block-cyclic column
     ownership. Returns L (lower triangular, zero above) in the matrix's
     dtype. jit-composable: shardings are applied with
     with_sharding_constraint, so this can be called inside a larger jitted
@@ -122,23 +107,17 @@ def distributed_cholesky(a: jax.Array, mesh: Mesh, block: int = 256) -> jax.Arra
     Accepts f32/f64 input; a bf16 input (bf16-stored factor slabs feeding a
     distributed root) is computed in f32 and returned bf16.
 
-    On a multi-axis mesh the column-cyclic ownership runs over the
-    FLATTENED device order (psum over all axes) — every panel all-reduce
-    then crosses the slowest axis, so multi-slice meshes route to the
-    2-D scheme instead (_pick_scheme); this path remains for forced
-    CHOLESKY_TPU_ROOT_SCHEME=1d.
-
     Depth-1 lookahead: the step-k panel arrives through the loop carry.
     After factoring it, the owner of block k+1 applies ONLY step k's
     update to its next [Fp, block] column slab (one small matmul) and the
     all-reduce for panel k+1 is issued BEFORE the O(Fp·block·Fp/ndev)
     trailing update of the local columns — the collective has no data
     dependence on the big matmul, so XLA's async collectives overlap the
-    ICI transfer with the step's dominant compute instead of serializing
+    transfer with the step's dominant compute instead of serializing
     after it (the classic broadcast/update overlap that right-looking
-    distributed Cholesky needs past ~8-16 chips; cost: one duplicated
+    distributed Cholesky needs past ~8-16 devices; cost: one duplicated
     [Fp, block]×[block, block] update of the lookahead column)."""
-    axes = mesh.axis_names                  # ("tree",) or ("slice", "tree")
+    axes = mesh.axis_names                  # ("tree",) from make_mesh
     axes_spec = axes if len(axes) > 1 else axes[0]
     ndev = int(mesh.devices.size)
     F = a.shape[0]
@@ -258,7 +237,7 @@ def distributed_cholesky_2d(a: jax.Array, mesh: Mesh,
          the row-broadcast panel), one psum over the row axis ("rg", pr
          members) — 2·(F/pc)·block·4 bytes per chip per step;
       5. trailing update of the local tiles: ONE [F/pr, block] x
-         [block, F/pc] MXU matmul.
+         [block, F/pc] matmul.
 
     Per-chip wire volume over the whole factorization is therefore
     ~2·F²·4·(1/pr + 1/pc) bytes vs the 1-D column-cyclic scheme's ~2·F²·4
@@ -270,30 +249,10 @@ def distributed_cholesky_2d(a: jax.Array, mesh: Mesh,
     cyclic layout to within one block row/column.
 
     jit-composable like the 1-D scheme (sharding constraints only). The
-    routing between the two lives in collective_cholesky.
-
-    On a multi-slice mesh (make_multislice_mesh) the grid maps onto the
-    topology instead of a blind near-square reshape: rg = the intra-slice
-    chip axis (so the tall (F/pc)·block column broadcast of step 4 and the
-    heavy row-group traffic ride ICI), cg = the slice axis (so the DCN
-    carries only step 3's (F/pr)·block row piece — 1/chips_per_slice of
-    the matrix per chip over the whole factorization, plus the tiny
-    diagonal tiles). With 4 slices × 8 chips at F=16384, block=256: DCN
-    per chip ≈ 2·F²·4/8 = 256 MiB spread over 64 steps vs 2 GiB if the
-    1-D all-reduce crossed slices every step."""
+    routing between the two lives in collective_cholesky."""
     ndev = int(mesh.devices.size)
-    if _is_multislice(mesh):
-        # rows = chips within a slice (ICI), cols = slices (DCN). The grid
-        # mesh keeps the multislice mesh's device ARRAY (so it composes
-        # with operands already placed on that mesh inside one jit) and
-        # only renames the axes: leading slice axis -> "cg", trailing
-        # intra-slice axis -> "rg".
-        n_slices, per_slice = mesh.devices.shape
-        pr, pc = per_slice, n_slices
-        mesh2 = Mesh(mesh.devices, ("cg", "rg"))
-    else:
-        pr, pc = _grid_for(ndev)
-        mesh2 = Mesh(mesh.devices.reshape(pr, pc), ("rg", "cg"))
+    pr, pc = _grid_for(ndev)
+    mesh2 = Mesh(mesh.devices.reshape(pr, pc), ("rg", "cg"))
     F = a.shape[0]
     in_dtype = a.dtype
     if a.dtype == jnp.bfloat16:
@@ -340,8 +299,7 @@ def distributed_cholesky_2d(a: jax.Array, mesh: Mesh,
 
         def step(k, carry):
             # 1) the diagonal tile arrives through the lookahead carry: its
-            #    two-axis psum (the DCN-crossing collective on a multislice
-            #    mesh) was issued in step k-1 BEFORE the trailing matmul, so
+            #    two-axis psum was issued in step k-1 BEFORE the trailing matmul, so
             #    its latency hides behind that step's dominant compute
             local, dblk = carry
             kr = (k % pr).astype(jnp.int32)
@@ -390,7 +348,7 @@ def distributed_cholesky_2d(a: jax.Array, mesh: Mesh,
             own1 = (dr == kr1) & (dc == kc1)
             dblk_next = lax.psum(
                 jnp.where(own1, tile, jnp.zeros_like(tile)), ("rg", "cg"))
-            # 6) trailing update of my tiles (one MXU matmul; includes the
+            # 6) trailing update of my tiles (one matmul; includes the
             #    lookahead tile exactly once — dblk_next took its own copy)
             upd = jnp.dot(Pk, Ykm.T, preferred_element_type=Pk.dtype)
             return local - upd, dblk_next
@@ -420,6 +378,6 @@ def collective_cholesky(a: jax.Array, mesh: Mesh,
     if block is None:
         block = int(os.environ.get("CHOLESKY_TPU_ROOT_BLOCK", "256"))
     ndev = int(mesh.devices.size)
-    if _pick_scheme(int(a.shape[0]), ndev, block, mesh) == "2d":
+    if _pick_scheme(int(a.shape[0]), ndev, block) == "2d":
         return distributed_cholesky_2d(a, mesh, block=block)
     return distributed_cholesky(a, mesh, block=block)

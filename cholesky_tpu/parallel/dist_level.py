@@ -2,13 +2,13 @@
 
 The elimination-tree sharding in parallel/mesh.py slot-shards a level's
 [B, F, W] panels only when B >= ndev; narrower levels replicated by
-policy, which capped aggregate-HBM capacity scaling one step below the
-root: at 80^3 on 8 chips the level-1 (B=2) streamed program was 4,453 MiB
-PER CHIP at ratio 1.000 while every wide level sat at 0.125
-(MEMSCALE.json, VERDICT r3 missing-item #1). Legion places those block
+policy, which capped aggregate device-memory scaling one step below the
+root: at 80^3 on 8 devices the level-1 (B=2) streamed program was 4,453 MiB
+PER DEVICE at ratio 1.000 while every wide level sat at 0.125 (AOT
+memory_analysis, tools/memcheck_mesh.py). Legion places those block
 tasks across the machine like any others (placement-agnostic index
 launches mmat.rg:1240-1294; mapper cholesky.cc:65-73); this module closes
-the gap on the TPU side.
+the gap here.
 
 Scheme: the mesh reshapes to a (fb = B fronts, rg = ndev/B chips) grid —
 each front factors over its own rg subgroup inside ONE shard_map:
@@ -29,12 +29,13 @@ each front factors over its own rg subgroup inside ONE shard_map:
      the output [B, K, K] leaves row-sharded for the parent program.
 
 Per-chip wire volume: 2 * F * W * 4 bytes per level (two row gathers)
-over ICI — the same order as reading the slab once. Per-chip HBM:
+over the interconnect — the same order as reading the slab once.
+Per-device memory:
 F*W/G owned + F*W gathered + 2*Kc^2 child updates + K^2/G emitted,
 vs the replicated program's B*F*W + B*F^2-order temps.
 
 Numerics are IDENTICAL operations to the replicated dense path
-(_blocked_cholesky + triangular_solve + one Schur matmul); only the row
+(POTRF + triangular_solve + one Schur matmul); only the row
 partitioning differs, so the virtual-mesh tests gate at the same 1e-10
 contract as the single-chip path.
 """
@@ -75,8 +76,8 @@ def eligible(fp, lvl: int, B: int, mesh) -> bool:
 
 
 def level_mesh(mesh, B: int) -> Mesh:
-    """(fb, rg) grid over the mesh's devices, flattened slice-major so
-    sibling subgroups stay intra-slice on a multislice mesh."""
+    """(fb, rg) grid over the mesh's devices: front b is owned by the
+    contiguous device group b."""
     ndev = int(mesh.devices.size)
     return Mesh(mesh.devices.reshape(B, ndev // B), (FB_AXIS, RG_AXIS))
 
@@ -124,8 +125,6 @@ def factor_level_sharded(fp, lvl: int, piv, U, mesh, update_dtype):
     @functools.partial(jax.shard_map, mesh=m2, in_specs=tuple(in_specs),
                        out_specs=out_specs)
     def _level(piv_l, invr_l, invc_l, invb_l, u_l):
-        from cholesky_tpu.numeric import frontal as _f
-
         g = lax.axis_index(RG_AXIS)
         cdt = jnp.promote_types(piv_l.dtype, jnp.float32)   # compute dtype
         pivl = piv_l[0].astype(cdt)                  # [F/G, W]
@@ -148,7 +147,8 @@ def factor_level_sharded(fp, lvl: int, piv, U, mesh, update_dtype):
 
         # 2) redundant pivot factorization after one row gather
         slab_full = lax.all_gather(slab_l, RG_AXIS, axis=0, tiled=True)
-        Ld = _f._blocked_cholesky(slab_full[None, :W, :])[0]   # [W, W]
+        Ld = lax.linalg.cholesky(slab_full[:W, :],
+                                 symmetrize_input=False)       # [W, W]
 
         # 3) boundary TRSM on local rows (pivot rows masked below)
         sol_l = lax.linalg.triangular_solve(

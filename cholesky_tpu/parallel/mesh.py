@@ -1,13 +1,13 @@
 """Multi-chip distribution over a jax.sharding.Mesh.
 
-TPU-native replacement for the reference's Legion mapper + Realm data
+Replacement for the reference's Legion mapper + Realm data
 movement (cholesky.cc:28-91 places per-block tasks; Realm moves regions).
 Here the elimination tree itself is the distribution: each level's panel
 array [2^L, H, W] is sharded over its slot (separator) axis of a 1-D device
 mesh, so independent subtrees land on different chips — the analogue of the
 reference's per-separator index launches spread across Legion processors
 (mmat.rg:1240-1294). Extend-add contributions that cross subtree boundaries
-become XLA collectives over ICI, inserted automatically by GSPMD from the
+become XLA collectives (NCCL on the GPU), inserted automatically by GSPMD from the
 sharding annotations (segment-sum over slots>>k in numeric/factor.py).
 
 Shallow levels (fewer separators than chips) are replicated: every chip
@@ -27,7 +27,6 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 TREE_AXIS = "tree"
-DCN_AXIS = "slice"
 
 
 def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
@@ -36,48 +35,6 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     if n_devices is not None:
         devices = devices[:n_devices]
     return Mesh(np.array(devices), (TREE_AXIS,))
-
-
-def make_multislice_mesh(n_slices: int, chips_per_slice: Optional[int] = None,
-                         devices=None) -> Mesh:
-    """2-axis mesh (DCN_AXIS, TREE_AXIS) for a multi-slice machine: the
-    leading axis enumerates ICI-connected slices joined by the (slower,
-    lower-bandwidth) data-center network; the trailing axis the chips inside
-    one slice. Device order must list each slice's chips contiguously — the
-    default `jax.devices()` order does on real multi-slice TPU jobs
-    (devices sort by (slice_index, chip coords)).
-
-    The slot (separator) axis of every level panel shards over the
-    COMBINED (slice, tree) axes (panel_sharding below), so a level's
-    contiguous slot blocks land per-chip with whole slices owning
-    contiguous subtree ranges. That layout is what keeps tree traffic off
-    the DCN: the extend-add from level L+1 to L pairs children (2k, 2k+1)
-    into parent k, and contiguous ownership keeps both children of a
-    parent on the SAME slice except for parents straddling a slice
-    boundary — at most (n_slices − 1) boundary fronts per transition cross
-    the DCN, while the other ~2^L − n_slices pairs ride ICI or stay
-    chip-local. The root front maps its process grid so only the thin
-    column-broadcast crosses slices (dist_cholesky.distributed_cholesky_2d).
-    This replaces the reference's Realm/GASNet multi-node data movement
-    (SURVEY §5: Legion regions move over GASNet when so configured) with an
-    explicitly topology-aware sharding."""
-    if devices is None:
-        devices = jax.devices()
-    if chips_per_slice is None:
-        if len(devices) % n_slices:
-            raise ValueError(f"{len(devices)} devices not divisible by "
-                             f"{n_slices} slices")
-        chips_per_slice = len(devices) // n_slices
-    devices = devices[:n_slices * chips_per_slice]
-    return Mesh(np.array(devices).reshape(n_slices, chips_per_slice),
-                (DCN_AXIS, TREE_AXIS))
-
-
-def slot_axes(mesh: Mesh):
-    """The mesh axis name(s) the slot/system axis shards over: TREE_AXIS on
-    a 1-D mesh, the (slice, tree) tuple on a multi-slice mesh — slot blocks
-    then distribute slice-major, keeping sibling subtrees intra-slice."""
-    return mesh.axis_names if len(mesh.axis_names) > 1 else TREE_AXIS
 
 
 def panel_sharding(mesh: Mesh, level: int) -> NamedSharding:
@@ -89,7 +46,7 @@ def panel_sharding(mesh: Mesh, level: int) -> NamedSharding:
     ndev = int(mesh.devices.size)
     nslots = 1 << level
     if nslots >= ndev and nslots % ndev == 0:
-        return NamedSharding(mesh, P(slot_axes(mesh), None, None))
+        return NamedSharding(mesh, P(TREE_AXIS, None, None))
     if 1 < nslots < ndev and ndev % nslots == 0:
         from cholesky_tpu.parallel.dist_level import FB_AXIS, RG_AXIS
 
@@ -103,7 +60,7 @@ def rhs_sharding(mesh: Mesh, level: int) -> NamedSharding:
     ndev = int(mesh.devices.size)
     nslots = 1 << level
     if nslots >= ndev and nslots % ndev == 0:
-        return NamedSharding(mesh, P(slot_axes(mesh), None))
+        return NamedSharding(mesh, P(TREE_AXIS, None))
     return NamedSharding(mesh, P(None, None))
 
 
@@ -116,7 +73,7 @@ def family_sharding(mesh: Mesh, k: int, ndim: int = 4) -> NamedSharding:
     ndev = int(mesh.devices.size)
     spec = [None] * ndim
     if k >= ndev and k % ndev == 0:
-        spec[0] = slot_axes(mesh)
+        spec[0] = TREE_AXIS
     return NamedSharding(mesh, P(*spec))
 
 

@@ -3,8 +3,8 @@
 The reference consumes professional offline orderings (mnd.c:22 reads
 them); the rebuild's standalone generator (symbolic/nd.py) matches or
 beats them on mesh-like graphs but lost 1.7-2.3x schedule FLOPs to
-SuperLU's MMD on irregular structures (random/circuit/imbalanced —
-VERDICT r3 weak #4). Per-leaf minimum degree — the textbook ND+MD
+SuperLU's MMD on irregular structures (random/circuit/imbalanced).
+Per-leaf minimum degree — the textbook ND+MD
 hybrid — was prototyped and moved the ratio by <1%: on those graphs the
 excess fill lives in the SEPARATORS (expander cuts do not shrink), not
 in leaf-interior order.

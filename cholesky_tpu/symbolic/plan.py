@@ -6,7 +6,7 @@ mmat.rg:835, fill/cluster analysis mmat.rg:896-1028). Here the whole symbolic
 phase runs on host, once, and produces a `SolvePlan`: permutation, per-level
 padded shape buckets, and panel layout. The numeric phase (JAX) consumes only
 this plan plus the assembled panel arrays — everything downstream is
-statically shaped, which is what XLA/TPU require.
+statically shaped, which is what XLA requires.
 
 Panel layout
 ------------
@@ -15,7 +15,7 @@ permuted matrix holding its diagonal block plus every off-diagonal block
 (a, s) for ancestors a of s (the blocks allocated by find_index_space_2d,
 mmat.rg:741-767). Panels at a level are padded to a common bucket shape
 [H(L), S(L)] and stacked into one [2^L, H(L), S(L)] array, so every numeric
-phase is one batched kernel per level — the TPU-native replacement for the
+phase is one batched kernel per level — the batched replacement for the
 reference's per-separator Legion index launches (mmat.rg:1240-1294).
 
 Panel row layout for a sep at level L (ancestors ordered immediate parent
@@ -91,7 +91,7 @@ def build_plan(ordering: Ordering, clusters: Optional[ClusterHierarchy] = None,
     cluster hierarchy, used by the fill analysis / debug oracle).
 
     pad_to: round each level's separator-size bucket up to this multiple
-    (TPU sublane granularity; 8 for fp32/f64 tiling).
+    (8 keeps fp32/f64 tiles aligned).
     """
     tree = SeparatorTree(ordering.levels, ordering.num_separators)
     nsep = tree.num_separators

@@ -112,7 +112,7 @@ def superlu_cost(n, rows, cols, vals,
     'MMD_AT_PLUS_A' (multiple minimum degree on the symmetric structure —
     the standard direct-solver ordering for symmetric systems) or
     'COLAMD'. Unlike RCM these are the honest available baseline for the
-    package's graph-ND generator (VERDICT r2 #4). Row pivoting (perm_r)
+    package's graph-ND generator. Row pivoting (perm_r)
     does not affect perm_c, so the numeric factorization splu performs is
     only a means to the ordering."""
     from scipy.sparse.linalg import splu

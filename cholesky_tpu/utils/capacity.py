@@ -3,15 +3,78 @@
 Parity with the reference's utils.py:6-21 (depth, leaf_size, subregions for a
 target dof count — used to pick nested-dissection depth for a 50^3 problem,
 utils.py:43-56), extended with the panel-memory and FLOP estimators that
-matter on TPU (HBM is the binding constraint, not task counts).
+matter on an accelerator (device memory is the binding constraint, not task
+counts), and the one place where the factor/solve regimes' memory thresholds
+are derived from the device's capacity.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Tuple
 
 import numpy as np
+
+# Capacity assumed for the CPU backend, which reports no memory_stats (the
+# test suite's virtual devices). An accelerator must report its own.
+CPU_FALLBACK_BYTES = 12 << 30
+
+# The regime thresholds below were first sized as absolute byte counts for a
+# device with 15.75 GiB usable; each is kept as its ratio to that capacity, so
+# a device of that size routes exactly as before and a larger one scales.
+# Re-tuning the fractions for a larger card awaits measurement on it.
+_SIZED_FOR = 15.75 * (1 << 30)
+FRACTIONS = {
+    # fronts past this factor level-streamed instead of as one program
+    "stream": (5 << 30) / _SIZED_FOR,
+    # streamed factors past this are stored bfloat16
+    "f32_store": (7 << 30) / _SIZED_FOR,
+    # fronts past this stream from the host and spill finished levels
+    "offload": (9 << 30) / _SIZED_FOR,
+    # per-device budget for extend-add intermediates and level chunking
+    "hbm_budget": (14.5 * (1 << 30)) / _SIZED_FOR,
+    # ceiling on the gathermm extend-add's materialized operands
+    "gathermm_cap": (8 << 30) / _SIZED_FOR,
+    # square fronts past this use the two-piece extend-add
+    "two_piece": (512 << 20) / _SIZED_FOR,
+    # a chunked level's emitted update past this spills to the host
+    "u_offload": (2 << 30) / _SIZED_FOR,
+    # a level's accumulated child update past this is stored bfloat16
+    "update_bf16": (3 << 29) / _SIZED_FOR,
+    # room the solve needs beside a device-resident factor
+    "solve_headroom": (3584 << 20) / _SIZED_FOR,
+    # fronts past this make the benchmark donate its factor inputs
+    "bench_donate": (2 << 30) / _SIZED_FOR,
+}
+
+
+def device_bytes() -> int:
+    """Memory capacity of one device in bytes: CHOLESKY_TPU_HBM_BYTES when
+    set, else the device's memory_stats()['bytes_limit']. The CPU backend
+    reports no stats and gets CPU_FALLBACK_BYTES; any other backend that
+    reports none is an error rather than a guess."""
+    env = os.environ.get("CHOLESKY_TPU_HBM_BYTES")
+    if env:
+        return int(env)
+    import jax
+
+    d = jax.devices()[0]
+    stats = d.memory_stats() or {}
+    if "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
+    if d.platform == "cpu":
+        return CPU_FALLBACK_BYTES
+    raise RuntimeError(
+        f"device {d.device_kind!r} ({d.platform}) reports no memory "
+        "capacity (memory_stats()['bytes_limit']); set "
+        "CHOLESKY_TPU_HBM_BYTES to its usable bytes")
+
+
+def threshold(name: str) -> int:
+    """The regime threshold `name` (a key of FRACTIONS) in bytes for the
+    current device."""
+    return int(FRACTIONS[name] * device_bytes())
 
 
 def depth(dim: int, max_size: int = 64) -> int:
@@ -102,7 +165,7 @@ def padding_efficiency(fp, useful_flops: float) -> float:
 def grid_plan_table(shape: Tuple[int, ...], levels_range=None,
                     dtype_bytes: int = 4):
     """Tabulate depth choices for a grid problem: (levels, leaf_dofs,
-    separators, panel_GiB, dense_GFLOP). The TPU analogue of the reference's
+    separators, panel_GiB, dense_GFLOP). The analogue of the reference's
     plotly figure (utils.py:21-62)."""
     from cholesky_tpu.symbolic.plan import build_plan
     from cholesky_tpu.utils.laplacian import nested_dissection

@@ -244,7 +244,7 @@ def imbalanced_spd(big_shape: Tuple[int, ...] = (40, 40),
 
 def make_gallery(scale: int = 1):
     """The canonical gallery at `scale`× the (CPU-test-sized) defaults.
-    scale=4 reaches ~100k-dof problems worth running on a TPU."""
+    scale=4 reaches ~100k-dof problems worth running on the card."""
     k = int(scale)
     return {
         "aniso2d": lambda: anisotropic_laplacian((48 * k, 48 * k),

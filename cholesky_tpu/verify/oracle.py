@@ -3,7 +3,7 @@
 This is the rebuild's ORACLE, not a production path: the dense ancestor-path
 panel engine (numeric/factor.py + numeric/assemble.py) wrapped as a small,
 explicitly-named cross-check. Its numeric structure is the most literal
-TPU translation of the reference's per-level schedule (one batched
+batched translation of the reference's per-level schedule (one batched
 POTRF/TRSM/SYRK triple per level over full ancestor-path panels,
 mmat.rg:1211-1358), which makes it easy to audit — and its results validate
 the production frontal engine's exact-boundary machinery in tests.

@@ -5,7 +5,7 @@ SciPy/NumPy — the rebuild of verify.py:40-58 (potrf/trsm/gemm golden ops) and
 verify.py:216-275 (debug_factor log replay). Used two ways:
 
   1. `replay_schedule` executes our own generated schedule — an independent
-     check that the batched TPU path computes the same factor.
+     check that the batched device path computes the same factor.
   2. `replay_log` parses a reference-format debug log (POTRF:/TRSM:/GEMM:
      dict lines) and executes it, so our logs (or the reference's!) can be
      verified interchangeably.

@@ -2,7 +2,7 @@
 reference executes (mmat.rg:1227-1355 driving the fused_* tasks,
 blas.rg:293-503), derived from the host-side fill analysis.
 
-This is NOT the fast path — the TPU numeric phase runs batched panel kernels.
+This is NOT the fast path — the numeric phase runs batched panel kernels.
 The explicit op list exists for (a) the `-d` debug log + replay oracle,
 (b) cluster-level FLOP accounting, (c) parity tests: replaying this schedule
 in NumPy must reproduce the fast path's factor bit-for-bit-ish (1e-12).

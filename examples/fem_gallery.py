@@ -8,7 +8,7 @@ auto-nested-dissection path, to the 1e-10 residual contract.
 
 --scale multiplies the default problem sizes (the gallery defaults are
 CPU-test-sized; --scale 4 reaches ~100k-dof problems worth running on the
-TPU). The reference solver cannot run any of these: it requires offline
+card). The reference solver cannot run any of these: it requires offline
 ord/clust files and ships only grid-Laplacian fixtures.
 """
 import argparse

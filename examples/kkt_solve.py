@@ -11,7 +11,7 @@ First-order optimality is the saddle-point (KKT) system
 
 which is symmetric QUASI-DEFINITE — (1,1) block SPD, (2,2) block negative
 definite — so it factors stably WITHOUT pivoting (Vanderbei '95) and the
-whole multifrontal TPU pipeline applies: pass `signs` (+1 for primal dofs,
+whole multifrontal pipeline applies: pass `signs` (+1 for primal dofs,
 −1 for multipliers) and solve. This is the linear-algebra core of
 interior-point and SQP methods; the reference solver (SPD-only dpotrf,
 blas.rg:63-79) cannot touch this matrix class.

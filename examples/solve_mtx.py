@@ -4,7 +4,7 @@
     python examples/solve_mtx.py A.mtx [B.mtx]
 
 Computes a nested-dissection ordering from the sparsity graph, factors in
-fp32 on the MXU with iterative refinement to 1e-10 (f64 on request via
+fp32 with iterative refinement to 1e-10 (f64 on request via
 --dtype float64), reports residual, logdet, and a condition estimate.
 The reference solver requires precomputed ord/clust files for this; here
 they are derived (symbolic/nd.py).

@@ -255,8 +255,8 @@ def test_precision_knob():
     """Matmul-precision override: accepted at construction and per
     factorize(), rejected when unknown, and the raised-precision factor
     solves to the same contract. (On CPU all precisions are f32 matmuls —
-    this tests the plumbing; the TPU effect is measured in BASELINE.md:
-    9 -> 3 refinement iterations at 50^3.)"""
+    this tests the plumbing; chip_smoke.py measures the effect on the
+    card.)"""
     n, r, c, v, o, cl, b = _build()
     s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
                                 precision="highest")
@@ -275,7 +275,7 @@ def test_precision_knob():
 
 
 def test_precision_auto_ladder(monkeypatch):
-    """Unset precision resolves from plan statistics (VERDICT r1 #4): small
+    """Unset precision resolves from plan statistics: small
     fp32 problems are solve-dominated and pick the 6-pass 'highest' factor;
     past the executed-FLOP threshold (or for f64) the one-pass default wins.
     The resolution pins once factored — solves must apply the factor at the
@@ -345,14 +345,14 @@ def test_inv_pivots_gate_capacity_aware(monkeypatch):
     """The streamed-regime branch of _want_inv_pivots must be CAPACITY
     gated, not unconditionally True: at 140^3 the stored bf16 factor
     (11.9 GiB) plus 6.7 GiB of f32 inverses exceeded the 16 GiB chip and
-    the round-4 solve died with RESOURCE_EXHAUSTED (VERDICT r4 missing
-    #2). Model both sides of the gate by pinning the device capacity."""
-    from cholesky_tpu.numeric import frontal
+    the solve died with RESOURCE_EXHAUSTED. Model both sides of the gate
+    by pinning the device capacity."""
+    from cholesky_tpu.utils import capacity
 
     n, r, c, v, o, cl, b = _build()
     s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)
     # force the streamed-regime branch regardless of problem size
-    monkeypatch.setattr(frontal, "_STREAM_BYTES", 0)
+    monkeypatch.setitem(capacity.FRACTIONS, "stream", 0)
 
     monkeypatch.setenv("CHOLESKY_TPU_HBM_BYTES", str(64 << 30))
     assert s._want_inv_pivots()          # plenty of room: inverses pay off
@@ -374,9 +374,10 @@ def test_solve_chunked_casts_match(monkeypatch):
     chunks on a small bf16-stored problem and hold the residual contract
     through the plain (no-inverses) solve path."""
     from cholesky_tpu.numeric import frontal
+    from cholesky_tpu.utils import capacity
 
     monkeypatch.setenv("CHOLESKY_TPU_STREAM", "1")
-    monkeypatch.setattr(frontal, "_F32_STORE_BYTES", 0)   # bf16 store
+    monkeypatch.setitem(capacity.FRACTIONS, "f32_store", 0)   # bf16 store
     monkeypatch.setenv("CHOLESKY_TPU_INV_PIVOTS", "0")    # plain path
     monkeypatch.setattr(frontal, "_TRI_MAX_BATCH", 1)     # chunk everything
     n, r, c, v, o, cl, b = _build()
@@ -391,10 +392,10 @@ def test_save_load_bf16_factor(tmp_path, monkeypatch):
     """bf16 (out-of-core) factors checkpoint as uint16 BIT patterns (v2
     storage: no widened f32 intermediate on disk or at load) and solve to
     the contract after a round trip through a fresh solver."""
-    from cholesky_tpu.numeric import frontal
+    from cholesky_tpu.utils import capacity
 
     monkeypatch.setenv("CHOLESKY_TPU_STREAM", "1")
-    monkeypatch.setattr(frontal, "_F32_STORE_BYTES", 0)   # force bf16 store
+    monkeypatch.setitem(capacity.FRACTIONS, "f32_store", 0)   # force bf16 store
     n, r, c, v, o, cl, b = _build()
     s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)
     s.factorize()
@@ -416,10 +417,10 @@ def test_device_ir_routing_bf16_capacity(monkeypatch):
     hoisted f32 promotions hold ~2x the stored factor live across the
     loop (the 140^3 21.94 GB OOM); when 3x stored cannot fit, the solve
     must route to the host-driven loop — and still meet the contract."""
-    from cholesky_tpu.numeric import frontal
+    from cholesky_tpu.utils import capacity
 
     monkeypatch.setenv("CHOLESKY_TPU_STREAM", "1")
-    monkeypatch.setattr(frontal, "_F32_STORE_BYTES", 0)   # bf16 store
+    monkeypatch.setitem(capacity.FRACTIONS, "f32_store", 0)   # bf16 store
     monkeypatch.setenv("CHOLESKY_TPU_INV_PIVOTS", "0")    # plain inner
     n, r, c, v, o, cl, b = _build()
     s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)

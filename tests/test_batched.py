@@ -1,5 +1,5 @@
 """Batched same-pattern factorization: K matrices through one vmapped
-program (SparseCholesky.factorize_many). The TPU-native form of the
+program (SparseCholesky.factorize_many). The batched form of the
 reference's --iterations refill/refactor loop (mmat.rg:1212-1224) — instead
 of re-running a task graph per matrix, the family rides a batch axis.
 """

@@ -15,10 +15,11 @@ from cholesky_tpu.io import mmio
 from tests.conftest import fixture_paths
 
 
-def run_cli(args, cwd=None):
+def run_cli(args, cwd=None, extra_env=None):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = "/root/repo"
+    env.update(extra_env or {})
     return subprocess.run(
         [sys.executable, "-m", "cholesky_tpu.cli"] + args,
         capture_output=True, text=True, env=env, cwd=cwd, timeout=600)
@@ -44,6 +45,22 @@ def check_solution(matrix_file, b_file, solution_file):
     sol = np.genfromtxt(solution_file).reshape(b.shape)
     ref = scipy.linalg.solve(a, b)
     return np.allclose(ref, sol, rtol=1e-4, atol=1e-4)
+
+
+def test_cli_devices_4(tmp_path):
+    """--devices 4 (the four-card target) through the CLI subprocess on 4
+    virtual CPU devices: the driver builds the 1-D mesh and still meets
+    the reference harness contract."""
+    p = fixture_paths("lapl_25x25")
+    sol = str(tmp_path / "solution.txt")
+    flags = os.environ.get("XLA_FLAGS", "")
+    r = run_cli(["-i", p["mat"], "-s", p["separators"], "-c", p["clusters"],
+                 "-b", p["b"], "-o", sol, "--devices", "4"],
+                extra_env={"XLA_FLAGS": flags + " --xla_force_host_platform_"
+                           "device_count=4"})
+    assert r.returncode == 0, r.stderr
+    assert "Done solve." in r.stdout
+    assert check_solution(p["mat"], p["b"], sol)
 
 
 # ALL FOUR reference fixtures go through the CLI subprocess — the

@@ -64,7 +64,7 @@ def test_replay_schedule_matches_scipy(name):
 
 @pytest.mark.parametrize("name", ["lapl_25x25", "lapl_400x400"])
 def test_replay_schedule_matches_fast_path(name):
-    """The batched TPU path and the reference-schedule replay agree."""
+    """The batched device path and the reference-schedule replay agree."""
     s, fa, pmat = setup_fixture(name)
     ops = schedule.generate_schedule(fa)
     replayed = np.tril(replay.replay_schedule(pmat, ops))

@@ -9,6 +9,7 @@ from cholesky_tpu import SparseCholesky
 from cholesky_tpu.io import mmio
 from cholesky_tpu.numeric import frontal
 from cholesky_tpu.symbolic.plan import permute_matrix_dense
+from cholesky_tpu.utils import capacity
 from cholesky_tpu.utils.laplacian import generate_problem
 from tests.conftest import fixture_paths
 
@@ -30,18 +31,26 @@ def test_boundary_structure_9x9():
 
 def test_same_shape_different_ordering_no_cache_collision():
     """Two plans can share every bucket shape (levels, W, F, n) while
-    differing in structure — the 5x5-grid fixture ordering vs our geometric
-    ND of the same grid. The level-program trace caches key on
-    FrontalPlan.key(); before the structural fingerprint was added, the
-    second plan silently reused the first's compiled programs (constants
-    baked at trace time) and factored WRONG. Both must be exact."""
-    p = fixture_paths("lapl_25x25")
-    s_fix = SparseCholesky.from_files(p["mat"], p["separators"], p["clusters"])
-    s_fix.factorize()
+    differing in structure — here the geometric ND of a 5x5 grid and the
+    same separators with each one's dofs listed in reverse. The
+    level-program trace caches key on FrontalPlan.key(); before the
+    structural fingerprint was added, the second plan silently reused the
+    first's compiled programs (constants baked at trace time) and factored
+    WRONG. Both must be exact."""
+    from cholesky_tpu.io.ordering import Ordering
 
     n, r, c, v, o, cl, b = generate_problem((5, 5), 3)
     s_gen = SparseCholesky.from_coo(n, r, c, v, o, cl)
-    assert s_gen.fplan.key() != s_fix.fplan.key()
+    s_gen.factorize()
+
+    o_rev = Ordering(o.levels, o.num_separators,
+                     {k: d[::-1].copy() for k, d in o.dofs.items()})
+    s_rev = SparseCholesky.from_coo(n, r, c, v, o_rev, cl)
+    fg, fr = s_gen.fplan, s_rev.fplan
+    assert (fg.levels, fg.W, fg.F) == (fr.levels, fr.W, fr.F)
+    assert any(not np.array_equal(a_, b_)
+               for a_, b_ in zip(fg.front_rows, fr.front_rows))
+    assert fr.key() != fg.key()
     import scipy.sparse
 
     off = r != c
@@ -49,9 +58,10 @@ def test_same_shape_different_ordering_no_cache_collision():
         (np.concatenate([v, v[off]]),
          (np.concatenate([r, c[off]]), np.concatenate([c, r[off]]))),
         shape=(n, n)).toarray()
-    lref = np.linalg.cholesky(a[np.ix_(s_gen.plan.perm, s_gen.plan.perm)])
-    np.testing.assert_allclose(s_gen.factor_dense(), lref,
-                               rtol=1e-12, atol=1e-12)
+    for s in (s_gen, s_rev):
+        lref = np.linalg.cholesky(a[np.ix_(s.plan.perm, s.plan.perm)])
+        np.testing.assert_allclose(s.factor_dense(), lref,
+                                   rtol=1e-12, atol=1e-12)
 
 
 def test_front_sizes_beat_panels():
@@ -177,8 +187,8 @@ def test_extadd_strategies_agree():
 
 
 def test_tri_solve_chunked(monkeypatch):
-    """Batch-chunked triangular solves (large leaf batches overflow XLA's
-    scoped VMEM) match the unchunked path exactly."""
+    """Batch-chunked triangular solves (frontal._TRI_MAX_BATCH) match the
+    unchunked path exactly."""
     monkeypatch.setattr(frontal, "_TRI_MAX_BATCH", 2)
     n, r, c, v, o, cl, b = generate_problem((13, 11), 4)
     s = SparseCholesky.from_coo(n, r, c, v, o, cl)
@@ -219,7 +229,7 @@ def test_streamed_solve_end_to_end(monkeypatch):
 def test_two_piece_bf16_updates(monkeypatch):
     """Forced two-piece extend-add with bfloat16 update storage (the 1M-dof
     HBM configuration) still meets the residual contract through IR."""
-    monkeypatch.setattr(frontal, "_TWO_PIECE_BYTES", 1)
+    monkeypatch.setitem(capacity.FRACTIONS, "two_piece", 0)
     monkeypatch.setattr(frontal, "_CAST_CHUNK", 16)
     monkeypatch.setenv("CHOLESKY_TPU_UPDATE_DTYPE", "bfloat16")
     n, r, c, v, o, cl, b = generate_problem((14, 13), 4)
@@ -234,8 +244,8 @@ def test_two_piece_gather_tier(monkeypatch):
     _apply_gather_2) matches the plain factorization."""
     import jax.numpy as jnp
 
-    monkeypatch.setattr(frontal, "_TWO_PIECE_BYTES", 1)
-    monkeypatch.setattr(frontal, "_GATHERMM_BYTES_CAP", 1)
+    monkeypatch.setitem(capacity.FRACTIONS, "two_piece", 0)
+    monkeypatch.setitem(capacity.FRACTIONS, "gathermm_cap", 0)
     n, r, c, v, o, cl, b = generate_problem((15, 14), 4)
     s = SparseCholesky.from_coo(n, r, c, v, o, cl)
     fp = s.fplan
@@ -259,7 +269,7 @@ def test_streamed_compressed_offload(monkeypatch):
     residual contract through iterative refinement."""
     monkeypatch.setenv("CHOLESKY_TPU_STREAM", "1")
     monkeypatch.setenv("CHOLESKY_TPU_DEVICE_ASSEMBLE", "0")
-    monkeypatch.setattr(frontal, "_OFFLOAD_BYTES", 1)
+    monkeypatch.setitem(capacity.FRACTIONS, "offload", 0)
     n, r, c, v, o, cl, b = generate_problem((16, 15), 4)
     s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)
     s.factorize()
@@ -286,10 +296,10 @@ def test_streamed_factor_offload(monkeypatch):
     x = s.solve(b)
     assert s.residual(b, x) <= 1e-10
 
-    monkeypatch.setattr(frontal, "_F32_STORE_BYTES", 0)  # forces bf16 store
-    # the re-upload gate is now capacity-aware (stored + solve headroom vs
-    # _hbm_bytes); pin the capacity to zero to model "no headroom"
-    monkeypatch.setenv("CHOLESKY_TPU_HBM_BYTES", "1")
+    monkeypatch.setitem(capacity.FRACTIONS, "f32_store", 0)  # bf16 store
+    # the re-upload gate is capacity-aware (stored + solve headroom vs the
+    # device's capacity); a headroom past the capacity models "no room"
+    monkeypatch.setitem(capacity.FRACTIONS, "solve_headroom", 2.0)
     s2 = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)
     s2.factorize()
     assert all(isinstance(p, np.ndarray) for p in s2.panels[1:])
@@ -326,7 +336,7 @@ def test_chunked_update_spill_matches(monkeypatch):
     (the 140^3 HBM fix: u_in + u_out at the level boundary were the OOM)
     must be numerically invisible — force the spill for every chunked
     level via a 1-byte threshold and compare against the unchunked run."""
-    monkeypatch.setattr(frontal, "_U_OFFLOAD_BYTES", 1)
+    monkeypatch.setitem(capacity.FRACTIONS, "u_offload", 0)
     n, r, c, v, o, cl, b = generate_problem((12, 12, 12), 6)
     s = SparseCholesky.from_coo(n, r, c, v, o, cl)
     fp = s.fplan
@@ -414,7 +424,7 @@ def test_streamed_upload_matches_monolithic():
 
 
 def test_streamed_top_fusion_matches_monolithic(monkeypatch):
-    """Top-of-tree fusion (VERDICT r1 #7): on deep trees the streamed driver
+    """Top-of-tree fusion: on deep trees the streamed driver
     runs the dispatch-bound narrow levels (B <= 8) as ONE jitted program.
     The fused path must engage (deep plan, default budget) and produce
     bit-identical factors to both the monolithic program and the unfused

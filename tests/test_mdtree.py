@@ -1,7 +1,7 @@
 """Minimum-degree hybrid ordering (symbolic/mdtree): MD quality, the
 linear-extension fill-parity theorem the tree construction rests on,
 separator-tree legality, end-to-end solves through the engine, and the
-auto-selection policy in nested_dissection_graph (VERDICT r3 weak #4)."""
+auto-selection policy in nested_dissection_graph."""
 
 import numpy as np
 import pytest
@@ -133,7 +133,7 @@ def test_native_col_counts_match_python():
 
 
 def test_md_hybrid_band_scale3(monkeypatch):
-    """Scale-3 band (VERDICT r4 #4): with the native MD + col-counts
+    """Scale-3 band: with the native MD + col-counts
     cores the hybrid reaches n ~ 24k irregular problems (the old 16,384
     cap silently fell back to pure ND and its measured 1.7-2.3x FLOP
     penalty there); hybrid/SuperLU-MMD must stay <= 1.35."""

@@ -281,7 +281,7 @@ def test_nd_vs_rcm_on_irregular_graphs():
     ratios ~25% tighter: random 0.56, circuit 0.50, dense_rows 0.05,
     imbalanced 0.38). The engine's auto-depth policy may still COLLAPSE the
     expander trees for batched execution (test_problems.py covers that);
-    this test pins the quality of the ordering itself. VERDICT r1 #9."""
+    this test pins the quality of the ordering itself."""
     from cholesky_tpu.symbolic.quality import nd_cost, rcm_cost
     from cholesky_tpu.utils import problems
 
@@ -296,13 +296,12 @@ def test_nd_vs_rcm_on_irregular_graphs():
 
 def test_nd_vs_mmd_bands():
     """Ordering quality vs the HONEST in-image fill-reducing baseline —
-    SuperLU's MMD_AT_PLUS_A extracted from scipy splu (VERDICT r2 #4; RCM
-    above is only a bandwidth orderer). Round 4's minimum-degree hybrid
+    SuperLU's MMD_AT_PLUS_A extracted from scipy splu. Round 4's minimum-degree hybrid
     (symbolic/mdtree: MD ordering -> elimination tree -> legal binary
     separator tree, auto-selected by symbolic FLOPs) closed the round-3
     1.7-2.3x irregular-graph gap to ~parity; these bands sit ~5-10%
     above the newly measured scale-1 ratios (aniso2d 1.19, random 1.00,
-    circuit 0.99, dense_rows 1.09, imbalanced 1.27 — VERDICT r3 #4
+    circuit 0.99, dense_rows 1.09, imbalanced 1.27
     asked for <= 1.3 on random/circuit/imbalanced). The 3-D ND win is
     pinned separately below."""
     from cholesky_tpu.symbolic.quality import nd_cost, superlu_cost

@@ -54,8 +54,7 @@ def test_distributed_matches_single_device(mesh):
 
 def test_narrow_level_distribution(mesh, monkeypatch):
     """Narrow mid-tree levels (1 < B < ndev) factor over per-front chip
-    subgroups (parallel/dist_level) instead of replicating — VERDICT r3
-    missing-item #1. Asserts engagement via a spy, output shardings that
+    subgroups (parallel/dist_level) instead of replicating. Asserts engagement via a spy, output shardings that
     span the full mesh, numerical identity with the single-chip path,
     and the 1e-10 contract; CHOLESKY_TPU_DIST_MID=0 must disable."""
     from cholesky_tpu.parallel import dist_level
@@ -156,8 +155,7 @@ def test_family_shards_over_mesh(mesh):
 def test_mesh_fp32_production_solve(mesh):
     """The flagship production configuration under the mesh: fp32 factor,
     slot-sharded panels, device-resident double-float iterative refinement,
-    gated at the framework's 1e-10 residual contract (VERDICT r1 #1: this
-    path previously ran only in f64 under a mesh)."""
+    gated at the framework's 1e-10 residual contract."""
     n, r, c, v, o, cl, b = generate_problem((24, 24), 5)
     s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
                                 mesh=mesh)
@@ -276,8 +274,7 @@ def test_mesh_capacity_composition(mesh):
 
 
 def test_mesh_quasi_definite(mesh):
-    """LDLᵀ under the mesh (VERDICT r2 #2: previously raised
-    NotImplementedError): the signed factor/solve programs are pure jit
+    """LDLᵀ under the mesh: the signed factor/solve programs are pure jit
     over slot-sharded fronts, so GSPMD distributes them like the SPD path.
     f64 direct to 1e-10; identical to the single-chip factor."""
     n, r, c, v, o, cl, b = generate_problem((16, 16), 4)
@@ -306,7 +303,7 @@ def test_mesh_per_chip_memory_scaling(mesh):
     """AOT memory_analysis (per-device under SPMD): the widest level's
     donating program holds ~1/8 the bytes per chip when its operands are
     slot-sharded over the 8-device mesh — the Realm memory-capacity-scaling
-    property (SURVEY §5) demonstrated without TPU hardware. Threshold 0.2
+    property (SURVEY §5) demonstrated on virtual devices. Threshold 0.2
     leaves headroom over the exact 0.125 for replicated edges."""
     import sys
 
@@ -342,4 +339,60 @@ def test_mesh_family_fp32_refined(mesh):
     assert len(bf.factors[0].sharding.device_set) == 8
     B = rng.standard_normal((k, n))
     X = bf.solve(B, tol=1e-10)
+    assert np.all(bf.residual(B, X) <= 1e-10)
+
+
+# ---- four devices: the four-card target (1-D mesh over 4 devices)
+
+@pytest.fixture(scope="module")
+def mesh4():
+    return make_mesh(4)
+
+
+def test_sharding_policy_4dev(mesh4):
+    """On 4 devices levels with >= 4 slots shard the slot axis; the B=2
+    level shards rows over 2-device subgroups; slot blocks are contiguous
+    per device."""
+    P = jax.sharding.PartitionSpec
+    assert panel_sharding(mesh4, 2).spec == P(TREE_AXIS, None, None)
+    assert panel_sharding(mesh4, 5).spec == P(TREE_AXIS, None, None)
+    s1 = panel_sharding(mesh4, 1)
+    assert s1.spec == P("fb", "rg", None)
+    assert s1.mesh.devices.shape == (2, 2)
+    assert panel_sharding(mesh4, 0).spec == P(None, None, None)
+    assert rhs_sharding(mesh4, 4).spec == P(TREE_AXIS, None)
+    arr = jax.device_put(np.zeros((8, 4, 4)), panel_sharding(mesh4, 3))
+    order = list(mesh4.devices.flat)
+    for d, idx in arr.sharding.devices_indices_map((8, 4, 4)).items():
+        assert (idx[0].start or 0) // 2 == order.index(d)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_solve_on_4dev(mesh4, dtype):
+    """Full factorize+solve on the 4-device mesh: the leaf level shards
+    over all 4 devices, the 1e-10 contract holds (f64 direct, f32 through
+    iterative refinement), and f64 matches the single-device path."""
+    n, r, c, v, o, cl, b = generate_problem((24, 24), 5)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=dtype, mesh=mesh4)
+    s.factorize()
+    assert len(s.panels[4].sharding.device_set) == 4
+    x = s.solve(b, tol=1e-10)
+    assert s.residual(b, x) <= 1e-10
+    if dtype == np.float64:
+        s1 = SparseCholesky.from_coo(n, r, c, v, o, cl)
+        np.testing.assert_allclose(x, s1.solve(b), rtol=1e-12, atol=1e-12)
+
+
+def test_family_on_4dev(mesh4):
+    """factorize_many shards the SYSTEM axis over the 4 devices."""
+    n, r, c, v, o, cl, b = generate_problem((12, 12), 3)
+    rng = np.random.default_rng(7)
+    k = 8
+    vals = (1.0 + rng.uniform(0, 2, size=k))[:, None] * v[None, :]
+    vals[:, r == c] += rng.uniform(0, 1, size=(k, int((r == c).sum())))
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, mesh=mesh4)
+    bf = s.factorize_many(vals)
+    assert len(bf.factors[0].sharding.device_set) == 4
+    B = rng.standard_normal((k, n))
+    X = bf.solve(B)
     assert np.all(bf.residual(B, X) <= 1e-10)

@@ -106,7 +106,7 @@ def _padding_efficiency(s):
 
 @pytest.mark.parametrize("name,floor", [
     # bucket-padding waste must stay bounded on hostile structures
-    # (VERDICT r1 #6). Floors are ~25% under measured values — regression
+    #. Floors are ~25% under measured values — regression
     # bands, not aspirations: dense_rows 0.35, imbalanced 0.28,
     # random/circuit 0.99 (the auto-depth policy collapses expander graphs
     # to the dense root rather than paying bucket-max padding at depth).

@@ -37,13 +37,14 @@ def test_inv_diag_grid_f32():
 
 
 def test_inv_diag_fixture_9x9():
-    base = "/root/reference/tests/lapl_9x9"
-    s = SparseCholesky.from_files(
-        f"{base}/lapl_3_2.mtx", f"{base}/lapl_3_2_ord_2.txt",
-        f"{base}/lapl_3_2_clust_2.txt", dtype=np.float64)
+    from tests.conftest import fixture_paths
+
+    p = fixture_paths("lapl_9x9")
+    s = SparseCholesky.from_files(p["mat"], p["separators"], p["clusters"],
+                                  dtype=np.float64)
     from cholesky_tpu.io import mmio
 
-    _, r, c, v = mmio.read_coo(f"{base}/lapl_3_2.mtx")
+    _, r, c, v = mmio.read_coo(p["mat"])
     r, c, v = mmio.dedup_lower(r, c, v)
     ref = np.diag(np.linalg.inv(_dense(9, r, c, v)))
     np.testing.assert_allclose(s.inv_diag(), ref, rtol=1e-10)

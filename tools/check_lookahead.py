@@ -5,8 +5,7 @@ Complements tests/test_lookahead_hlo.py (backend-independent dependence
 check on the lowered module) with a look at the post-optimization,
 scheduled module:
 
-  * on a multi-chip TPU (or a TPU topology AOT target when the runtime
-    exposes one), the XLA latency-hiding scheduler splits the lookahead
+  * on several GPUs, the XLA latency-hiding scheduler splits the lookahead
     collective into `all-reduce-start` / `all-reduce-done`; this tool
     asserts the START is scheduled BEFORE the step's big trailing dot
     and the DONE after it — the actual overlap window;

@@ -1,4 +1,4 @@
-"""Experiment: factor/solve wall vs matmul precision at 50^3 (VERDICT r1 #4).
+"""Experiment: factor/solve wall vs matmul precision at 50^3.
 
 For each precision config: factor wall (timed by checksum readback),
 solve wall at tol=1e-10 (the contract) and 1e-11 (bench margin), IR
@@ -28,23 +28,13 @@ configs = sys.argv[1:] or ["default", "high", "highest"]
 shape, levels = (50, 50, 50), 8
 n, r, c, v, o, cl, b = generate_problem(shape, levels)
 
-floor_fn = jax.jit(lambda x: jnp.sum(x))
-small = jnp.ones((8, 8), jnp.float32)
-float(floor_fn(small))
-floors = []
-for _ in range(5):
-    t0 = time.perf_counter(); float(floor_fn(small))
-    floors.append(time.perf_counter() - t0)
-floor = min(floors)
-print(f"# rpc floor {floor*1e3:.1f} ms", flush=True)
-
 
 def timeit(f, iters=4):
     f()
     ts = []
     for _ in range(iters):
         t0 = time.perf_counter(); f(); ts.append(time.perf_counter() - t0)
-    return max(min(ts) - floor, 1e-9)
+    return min(ts)
 
 
 for prec in configs:

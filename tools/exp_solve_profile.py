@@ -1,4 +1,4 @@
-"""Decompose the 50^3 solve wall (VERDICT r1 #4): run the device IR program
+"""Decompose the 50^3 solve wall: run the device IR program
 at several iteration budgets (max_iter is a TRACED operand — one compiled
 program serves all budgets) and extract constant + per-sweep cost from the
 slope. Plus the full api solve for the host pre/post overhead.
@@ -25,23 +25,13 @@ from cholesky_tpu.utils.laplacian import generate_problem
 shape, levels = (50, 50, 50), 8
 n, r, c, v, o, cl, b = generate_problem(shape, levels)
 
-floor_fn = jax.jit(lambda x: jnp.sum(x))
-small = jnp.ones((8, 8), jnp.float32)
-float(floor_fn(small))
-floors = []
-for _ in range(5):
-    t0 = time.perf_counter(); float(floor_fn(small))
-    floors.append(time.perf_counter() - t0)
-floor = min(floors)
-print(f"# rpc floor {floor*1e3:.1f} ms", flush=True)
-
 
 def timeit(f, iters=6):
     f()
     ts = []
     for _ in range(iters):
         t0 = time.perf_counter(); f(); ts.append(time.perf_counter() - t0)
-    return max(min(ts) - floor, 1e-9)
+    return min(ts)
 
 
 solver = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)

@@ -1,4 +1,4 @@
-"""Measure the top-of-tree fusion win on the streamed path (VERDICT r1 #7).
+"""Measure the top-of-tree fusion win on the streamed path.
 
 Times frontal_factor_streamed (lazy device assembly, donate) at a
 streamed-regime scale with fusion on (default 256 MB budget) and off
@@ -29,16 +29,6 @@ levels = int(sys.argv[2]) if len(sys.argv) > 2 else 8
 shape = (dim, dim, dim)
 n, r, c, v, o, cl, b = generate_problem(shape, levels)
 
-floor_fn = jax.jit(lambda x: jnp.sum(x))
-small = jnp.ones((8, 8), jnp.float32)
-float(floor_fn(small))
-floors = []
-for _ in range(5):
-    t0 = time.perf_counter(); float(floor_fn(small))
-    floors.append(time.perf_counter() - t0)
-floor = min(floors)
-print(f"# rpc floor {floor*1e3:.1f} ms", flush=True)
-
 solver = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)
 fp = solver.fplan
 asm = frontal.FrontAssembler(fp, solver.rows, solver.cols)
@@ -62,7 +52,7 @@ for tag, budget in (("fused", frontal._TOP_FUSE_BYTES), ("unfused", 0)):
     for _ in range(4):
         t0 = time.perf_counter(); run_once()
         ts.append(time.perf_counter() - t0)
-    res[f"{tag}_factor_wall_s"] = round(max(min(ts) - floor, 1e-9), 4)
+    res[f"{tag}_factor_wall_s"] = round(min(ts), 4)
     print(f"# [{tag}] {res[f'{tag}_factor_wall_s']}s", flush=True)
 
 res["speedup"] = round(res["unfused_factor_wall_s"] /

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Per-chip HBM accounting of the level-streamed factorization under a
-device mesh — AOT compile only, no execution, no TPU required.
+"""Per-device memory accounting of the level-streamed factorization under
+a device mesh — AOT compile only, no execution.
 
 Proves the reference's implicit Realm property (a problem too big for one
 node spans the machine's aggregate memory — cholesky.cc:65-73 placement +
-Realm movement) holds for the TPU rebuild: slot-sharding the level programs
+Realm movement) holds for the rebuild: slot-sharding the level programs
 over an N-device mesh divides per-chip argument/output/temp bytes ~1/N on
 every wide level (narrow top levels replicate by policy, mesh.py:40-47).
 
@@ -75,7 +75,7 @@ def analyze(fp, lvl, mesh, gm_cap, store_dtype=None, dtype=jnp.float32):
     update_dtype = frontal._update_dtype_for(dtype, frontal._u_bytes(fp, lvl))
     # forward the mesh spec exactly as the streamed driver does: the
     # collective root at lvl 0 AND the narrow mid-tree levels
-    # (parallel/dist_level) — replicate-by-policy is gone (VERDICT r3 #1)
+    # (parallel/dist_level) — replicate-by-policy is gone
     spec = (frontal._mesh_for_level(fp, lvl,
                                     frontal._effective_root_mesh(fp, mesh))
             if mesh is not None else None)

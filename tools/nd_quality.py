@@ -1,4 +1,4 @@
-"""Ordering-quality comparison CLI: auto-ND vs RCM vs natural (VERDICT r1 #9).
+"""Ordering-quality comparison CLI: auto-ND vs RCM vs natural.
 
 For each gallery problem, compute the scalar sparse-Cholesky cost of the
 permutation produced by (a) cholesky_tpu's graph nested dissection — both at

@@ -35,10 +35,6 @@ def timeit(f, iters=5):
         t0 = time.perf_counter(); f(); ts.append(time.perf_counter()-t0)
     return min(ts)
 
-floor_fn = jax.jit(lambda x: jnp.sum(x))
-small = jnp.ones((8,8), jnp.float32)
-floor = timeit(lambda: float(floor_fn(small)))
-print(f"rpc floor: {floor*1e3:.1f} ms", flush=True)
 
 bp = jnp.asarray(b[solver.plan.perm].astype(np.float32))
 
@@ -54,14 +50,14 @@ if "solve1" in stages:
     def sol1(key, fac, iv, bb):
         return frontal.frontal_solve(frontal._FPLAN_CACHE[key], fac, bb,
                                      inv_pivots=iv)
-    t = timeit(lambda: np.asarray(sol1(fp.key(), factors, inv, bp))) - floor
+    t = timeit(lambda: np.asarray(sol1(fp.key(), factors, inv, bp)))
     print(f"frontal_solve(inv_pivots) 1x: {t*1e3:.1f} ms", flush=True)
     t = timeit(lambda: jax.block_until_ready(
-        frontal.invert_pivots(fp, factors))) - floor
+        frontal.invert_pivots(fp, factors)))
     print(f"invert_pivots: {t*1e3:.1f} ms", flush=True)
 
 if "tri" in stages:
-    t = timeit(lambda: np.asarray(frontal.solve(fp, factors, bp))) - floor
+    t = timeit(lambda: np.asarray(frontal.solve(fp, factors, bp)))
     print(f"frontal_solve(triangular) 1x: {t*1e3:.1f} ms", flush=True)
 
 if "resid" in stages:
@@ -73,7 +69,7 @@ if "resid" in stages:
                    refine._residual_df(ix, ah, al, bh, bl, xh, xl))
     xh = bp; xl = jnp.zeros_like(bp)
     t = timeit(lambda: np.asarray(
-        res1(idx, a_hi, a_lo, b_hi, b_lo, xh, xl)[0])) - floor
+        res1(idx, a_hi, a_lo, b_hi, b_lo, xh, xl)[0]))
     print(f"df residual 1x: {t*1e3:.1f} ms", flush=True)
 
 if "refine" in stages:
@@ -85,7 +81,7 @@ if "refine" in stages:
     def full():
         refine.solve_refined_df(
             fp, factors, b[solver.plan.perm], ell, inv_pivots=inv)
-    t = timeit(full) - floor
+    t = timeit(full)
     print(f"solve_refined_df full: {t*1e3:.1f} ms", flush=True)
 
 if "conv" in stages:
@@ -104,5 +100,5 @@ if "conv" in stages:
     print(f"conv(tri): iters={it} hist={[f'{v:.2e}' for v in h]}", flush=True)
 
 if "api" in stages:
-    t = timeit(lambda: solver.solve(b)) - floor
+    t = timeit(lambda: solver.solve(b))
     print(f"api solve: {t*1e3:.1f} ms", flush=True)

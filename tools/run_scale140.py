@@ -1,11 +1,11 @@
-"""140^3 (2,744,000 dofs) end-to-end verified-row run on the one chip.
+"""140^3 (2,744,000 dofs) end-to-end verified-row run on one card.
 
 Full out-of-core pipeline via the production api path: lazy per-level
 device assembly, level-streamed donating programs with auto batch
 chunking + child-update spill, bf16 factor store, host offload, then the
 capacity-aware re-upload and the no-inverses (plain) refined solve —
-the round-5 fix for the round-4 RESOURCE_EXHAUSTED at this scale
-(VERDICT r4 "What's missing" #2). Prints a wall + residual row.
+the path that avoids the RESOURCE_EXHAUSTED this scale first hit.
+Prints a wall + residual row.
 
 Usage: python tools/run_scale140.py [dim levels]  (default 140 14)
 """

@@ -1,19 +1,17 @@
 #!/usr/bin/env python
 """Warm-start cost of a FRESH process with a warm persistent compile cache.
 
-VERDICT r4 #3(b): production compiles (factor ~19 s, pair ~23 s at the
-50^3 design target) were paid in full by every fresh process even though
-`setup_compilation_cache` was wired in — the claim "warm processes skip
-the compile" was never measured. This script IS the measurement: run it
-in a fresh interpreter after any bench/CLI run has populated the cache
-and it times exactly what a production caller pays end-to-end —
-symbolic analysis, device assembly, `factorize()` (compile-or-cache-hit
-+ first run), first `solve()` (same), and the warm per-call walls.
+Production programs take tens of seconds to compile; the persistent
+compile cache (`setup_compilation_cache`: JAX_COMPILATION_CACHE_DIR, else
+<checkout>/.jax_cache) is what lets a fresh process skip that. This script
+is the measurement: run it in a fresh interpreter after a bench/CLI run
+has populated the cache, with no other process holding the card, and it
+times exactly what a production caller pays end-to-end — symbolic
+analysis, device assembly, `factorize()` (compile-or-cache-hit + first
+run), first `solve()` (same), and the warm per-call walls, each synced
+with jax.block_until_ready.
 
-bench.py spawns this as a subprocess at the end of a full run and
-records the JSON under `warm_start` in the artifact, so the field
-measures a genuinely fresh process against the cache that same run just
-filled. Standalone: python tools/warm_start.py [dim levels].
+Run: python tools/warm_start.py [dim levels]
 
 Reference analogue: Legion's `__demand(__trace)` replay makes repeat
 iterations free in-run (mmat.rg:1211); the persistent cache is the
@@ -26,6 +24,7 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+import jax
 import numpy as np
 
 import cholesky_tpu
@@ -52,10 +51,10 @@ def main() -> int:
     t_plan = time.time() - t_all
 
     t0 = time.time()
-    solver.factorize()               # compile-or-cache-hit + first run
+    jax.block_until_ready(solver.factorize())   # compile-or-cache-hit + run
     t_factor_first = time.time() - t0
     t0 = time.time()
-    solver.factorize()
+    jax.block_until_ready(solver.factorize())
     t_factor_warm = time.time() - t0
 
     t0 = time.time()
